@@ -1,6 +1,6 @@
-"""One-command MTX search: parse -> autotune -> serve -> accuracy.
+"""One-command MTX search: parse -> pack -> serve -> accuracy.
 
-  python examples/mtx_search.py matrix.mtx [k] [--no-autotune]
+  python examples/mtx_search.py matrix.mtx [k] [--f32]
   python examples/mtx_search.py --synthetic-glove [k]
 
 The end-to-end flow of the reference benchmark hosts (readMtx ->
@@ -8,15 +8,14 @@ create_sample_vector -> SpMV -> gold check, host_spmv_bscsr.cpp:510-707)
 as a library user would run it:
 
   1. parse the MTX file (native C++ parser when built, formats/mtx.py),
-  2. autotune an engine config on a corpus sample (tune.autotune),
-  3. build the matrix-resident engine and serve queries,
+  2. build the matrix-resident engine (h16 words + exact host rescore of
+     the top-400 pool; --f32 for one nnz per word without rescore),
+  3. serve queries,
   4. report precision/NDCG against the exact CPU gold per query.
 
 --synthetic-glove generates a GloVe-shaped corpus (2.2M x 300, ~25 nnz
 per row — test_spmv_topk.py:28-32's real dataset geometry) when no real
-MTX file is at hand: this environment has no network egress, so the real
-GloVe embeddings cannot be downloaded (see RESULTS.md c7/c11 for the
-measured stand-ins).
+MTX file is at hand.
 """
 
 import os
@@ -30,15 +29,15 @@ import numpy as np
 if __package__ is None:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from spmv_topk_tpu.utils.profiling import enable_compilation_cache
+from spmv_topk.utils.profiling import enable_compilation_cache
 
 enable_compilation_cache()
 
-import spmv_topk_tpu as st
-from spmv_topk_tpu.eval.metrics import ndcg, precision_at_k
-from spmv_topk_tpu.formats import (create_query_batch, create_sparse_matrix,
-                                   read_mtx)
-from spmv_topk_tpu.ops.gold import topk_exact
+import spmv_topk as st
+from spmv_topk.eval.metrics import ndcg, precision_at_k
+from spmv_topk.formats import (create_query_batch, create_sparse_matrix,
+                             read_mtx)
+from spmv_topk.ops.gold import topk_exact
 
 
 def main(argv):
@@ -61,16 +60,13 @@ def main(argv):
     print(f"{name}: {corpus.num_rows} x {corpus.num_cols}, "
           f"{corpus.nnz} nnz ({parse_s:.1f} s)")
 
-    if "--no-autotune" in flags:
+    if "--f32" in flags:
         cfg = st.TopKSpMVConfig(k=k)
-        print("config: defaults (f32 codec, slice layout)")
     else:
-        t0 = time.time()
-        cfg, report = st.autotune(corpus, k=k, target_precision=0.98)
-        print(f"autotune ({time.time() - t0:.1f} s): "
-              f"codec={cfg.query_codec} layout={cfg.fused_layout} "
-              f"quantum={cfg.width_quantum} fold_tile={cfg.fold_tile} "
-              f"rescore_pool={cfg.rescore_pool}")
+        cfg = st.TopKSpMVConfig(k=k, query_codec="h16", width_quantum=2,
+                                rescore_pool=4 * k)
+    print(f"config: codec={cfg.query_codec} quantum={cfg.width_quantum} "
+          f"rescore_pool={cfg.rescore_pool}")
 
     t0 = time.time()
     engine = st.TopKSpMV(corpus, cfg)
@@ -93,7 +89,7 @@ def main(argv):
     print(f"query wall: first {times[0] * 1e3:.1f} ms (incl. compile), "
           f"then {np.mean(times[1:]) * 1e3:.2f} ms mean "
           f"(host round-trip incl. dispatch; see bench.py for the "
-          "slope-timed device rate)")
+          "slope-timed device time)")
     print(f"precision@{k} vs exact gold: {np.mean(precs):.4f}   "
           f"NDCG: {np.mean(ndcgs):.5f}")
     return 0

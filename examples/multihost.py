@@ -16,10 +16,10 @@ import numpy as np
 if __package__ is None:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import spmv_topk_tpu as st
-from spmv_topk_tpu.formats import create_sparse_matrix, create_sample_vector
-from spmv_topk_tpu.parallel import initialize_multihost, global_mesh
-from spmv_topk_tpu.parallel.sharded_buckets import ShardedBucketedTopKSpMV
+import spmv_topk as st
+from spmv_topk.formats import create_sparse_matrix, create_sample_vector
+from spmv_topk.parallel import initialize_multihost, global_mesh
+from spmv_topk.parallel.sharded_buckets import ShardedBucketedTopKSpMV
 
 initialize_multihost()  # no-op without COORDINATOR_ADDRESS
 mesh = global_mesh()

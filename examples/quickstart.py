@@ -2,6 +2,7 @@
 
 import os
 import sys
+import tempfile
 
 import numpy as np
 
@@ -10,13 +11,14 @@ import numpy as np
 if __package__ is None:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import spmv_topk_tpu as st
-from spmv_topk_tpu.formats import create_sparse_matrix, create_sample_vector
+import spmv_topk as st
+from spmv_topk.formats import create_sparse_matrix, create_sample_vector
 
 # 1M sparse embeddings, 1024 dims, ~20 nnz each (gamma-skewed degrees)
 corpus = create_sparse_matrix(1_000_000, 1024, 20, "gamma", seed=0)
 
-# Build once: packs to the TPU layout and leaves the matrix HBM-resident.
+# Build once: packs to the bucketed SELL layout and leaves the matrix
+# resident in device memory.
 engine = st.TopKSpMV(corpus, st.TopKSpMVConfig(k=100))
 
 # Query many times (the reference's reset() loop, for free).
@@ -31,29 +33,26 @@ batch = np.stack([create_sample_vector(1024, seed=10 + i) for i in range(16)])
 idx, vals = engine.query_batch(batch)
 print("batch:", np.asarray(idx).shape)
 
-# Not sure which codec/config? Let the library measure it on a sample:
-#   cfg, report = st.autotune(corpus, k=100, target_precision=0.98)
-#   engine = st.TopKSpMV(corpus, cfg)
-
-# Fast mode: the h16 codec packs 2 nnz per word (2 B/nnz of HBM) and
-# sweeps at the memory roofline (~3x the FPGA reference per chip); the
-# rescore pool re-ranks the top-400 candidates with exact f32 dot
-# products on the host CSR, so the served top-k is exact in practice.
+# Production mode: the h16 codec packs 2 nnz per word (half the bytes
+# streamed per query); the rescore pool re-ranks the top-400 candidates
+# with exact f32 dot products on the host CSR, so the served top-k is
+# exact in practice.
 fast = st.TopKSpMV(corpus, st.TopKSpMVConfig(
-    k=100, query_codec="h16", width_quantum=4, rescore_pool=400))
+    k=100, query_codec="h16", width_quantum=2, rescore_pool=400))
 print("fast top-5:", np.asarray(fast.query(create_sample_vector(1024, seed=0))[0])[:5])
 
 # Persist the packed engine: serving restarts skip the re-pack. (A
 # load()ed engine has no host CSR, so query it with rescore_pool=0 or
-# rebuild from the matrix to rescore.)
-fast.save("/tmp/corpus_packed.npz")
-reloaded = st.TopKSpMV.load("/tmp/corpus_packed.npz")
+# pass matrix= to load() to rescore.)
+snapshot = os.path.join(tempfile.mkdtemp(), "corpus_packed.npz")
+fast.save(snapshot)
+reloaded = st.TopKSpMV.load(snapshot)
 print("reloaded top-5:",
       np.asarray(reloaded.query(create_sample_vector(1024, seed=0),
                                 rescore_pool=0)[0])[:5])
 
-# Highest batched throughput when the dense form fits HBM (~2 GB here):
-# dense bf16 MXU sweep + approx_max_k, ~3x the sparse batch rate.
+# Batched serving from the dense form when it fits in device memory
+# (~2 GB here): bf16 matmul sweep + approx_max_k.
 dense = st.DenseTopKSpMV(corpus, st.TopKSpMVConfig(k=100))
 idx, vals = dense.query_batch(batch)
 print("dense batch:", np.asarray(idx).shape)

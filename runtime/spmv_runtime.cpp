@@ -1,6 +1,6 @@
-// Native host runtime for tpu-topk-spmv: fast MTX parsing and SELL packing.
+// Native host runtime for spmv-topk: fast MTX parsing and SELL packing.
 //
-// TPU-native counterpart of the reference's host-side preprocessing, the
+// Counterpart of the reference's host-side preprocessing, the
 // hot O(nnz) loops that dominate setup time:
 //   - MTX parsing: /root/reference/src/common/utils/mmio.hpp +
 //     readMtx (/root/reference/src/common/utils/utils.hpp:475-520)
@@ -8,7 +8,7 @@
 //     (/root/reference/src/fpga/src/host_spmv_bscsr.cpp:189-248)
 //
 // Exposed as a C ABI consumed from Python via ctypes
-// (spmv_topk_tpu/utils/native.py); the NumPy implementations remain the
+// (spmv_topk/utils/native.py); the NumPy implementations remain the
 // portable fallback and the differential oracle for these routines.
 //
 // Build: make -C runtime   (g++ -O3 -march=native -shared -fPIC)
@@ -145,12 +145,12 @@ int32_t coo_is_sorted(const int32_t* rows, const int32_t* cols, int64_t nnz,
 }
 
 // ---------------------------------------------------------------------------
-// SELL-128 packing (see spmv_topk_tpu/formats/sell.py for the format spec).
+// SELL-128 packing (see spmv_topk/formats/sell.py for the format spec).
 // ---------------------------------------------------------------------------
 
 // Phase 1: sigma-sort rows by degree (stable desc), compute slice widths.
 // degrees: (num_rows), perm/rank out: (num_rows), slice_w out: (num_slices).
-void sell_plan(const int32_t* degrees, int64_t num_rows, int64_t chunk_sublanes,
+void sell_plan(const int32_t* degrees, int64_t num_rows, int64_t width_quantum,
                int32_t sigma_sort, int64_t* perm, int64_t* rank,
                int64_t* slice_w /* num_slices */) {
   for (int64_t i = 0; i < num_rows; i++) perm[i] = i;
@@ -165,7 +165,7 @@ void sell_plan(const int32_t* degrees, int64_t num_rows, int64_t chunk_sublanes,
     int32_t mx = 0;
     int64_t lo = t * kLanes, hi = std::min(num_rows, lo + kLanes);
     for (int64_t i = lo; i < hi; i++) mx = std::max(mx, degrees[perm[i]]);
-    int64_t w = cdiv(std::max<int64_t>(mx, 1), chunk_sublanes) * chunk_sublanes;
+    int64_t w = cdiv(std::max<int64_t>(mx, 1), width_quantum) * width_quantum;
     slice_w[t] = w;
   }
 }
@@ -173,7 +173,7 @@ void sell_plan(const int32_t* degrees, int64_t num_rows, int64_t chunk_sublanes,
 // Phase 2: scatter nnz into packed words (parallel over nnz ranges).
 // rows/cols/vals must be row-major sorted. words: (total_sub * 128) int32
 // zero-initialized by the caller. row_start: CSR offsets (num_rows+1).
-// slice_off: per-slice sublane offsets (num_slices+1).
+// slice_off: per-slice word-row offsets (num_slices+1).
 void sell_scatter(const int32_t* rows, const int32_t* cols, const float* vals,
                   int64_t nnz, const int64_t* row_start, const int64_t* rank,
                   const int64_t* slice_off, int32_t* words, int32_t n_threads) {
@@ -201,7 +201,7 @@ void sell_scatter(const int32_t* rows, const int32_t* cols, const float* vals,
 
 // ---------------------------------------------------------------------------
 // h16 pair-scatter: two nnz per 32-bit word (col10 | val6 per 16-bit
-// half, see spmv_topk_tpu/formats/sell_buckets.py::_scatter_h16 for the
+// half, see spmv_topk/formats/sell_buckets.py::_scatter_h16 for the
 // layout spec — that NumPy routine stays as the differential oracle, but
 // its temporaries cost ~9x the packed size and ~445 s at 1G nnz; this
 // in-place threaded loop packs 2G nnz in seconds, the 100M-row BASELINE
@@ -209,7 +209,7 @@ void sell_scatter(const int32_t* rows, const int32_t* cols, const float* vals,
 // ---------------------------------------------------------------------------
 
 // rows/cols/vals row-major sorted. row_start: CSR offsets (num_rows+1).
-// rank: sigma-sort rank per row. slice_off: per-slice sublane offsets in
+// rank: sigma-sort rank per row. slice_off: per-slice word-row offsets in
 // WORD units (num_slices+1), built from pair degrees ceil(d/2).
 // inv_scale = 1 / value_scale. words: (total_sub * 128) int32, zeroed by
 // the caller. Threads split on nnz ranges aligned so no (row, pair)

@@ -3,7 +3,7 @@
 Each process owns 4 virtual CPU devices (8 global), packs ONLY its own
 row slice (distributed.local_shard_rows), and serves queries through the
 global-mesh ShardedBucketedTopKSpMV — the functional model of the
-multi-HOST deployment (BASELINE configs 4-5), run without TPU hardware
+multi-HOST deployment (BASELINE configs 4-5), run without accelerators
 the way the reference validates multi-partition behavior in sw_emu
 (Makefile:114-138).
 
@@ -30,11 +30,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from spmv_topk_tpu.config import TopKSpMVConfig
-from spmv_topk_tpu.formats import create_sparse_matrix, create_sample_vector
-from spmv_topk_tpu.ops.gold import topk_exact
-from spmv_topk_tpu.parallel import ShardedBucketedTopKSpMV
-from spmv_topk_tpu.parallel.distributed import global_mesh, local_shard_rows
+from spmv_topk.config import TopKSpMVConfig
+from spmv_topk.formats import create_sparse_matrix, create_sample_vector
+from spmv_topk.ops.gold import topk_exact
+from spmv_topk.parallel import ShardedBucketedTopKSpMV
+from spmv_topk.parallel.distributed import global_mesh, local_shard_rows
 
 mesh = global_mesh()
 D = int(mesh.devices.size)
@@ -48,20 +48,18 @@ local = coo.row_slice(lo, hi)
 q = create_sample_vector(256, seed=12)
 gi, gv = topk_exact(coo, q, 16)
 
-cfg = TopKSpMVConfig(k=16, lane_k=8, num_partitions=1, max_cols=256,
-                     block_sublanes=32)
+cfg = TopKSpMVConfig(k=16, lane_k=8, max_cols=256)
 eng = ShardedBucketedTopKSpMV(local, cfg, mesh=mesh,
                               local_rows=(lo, coo.num_rows))
 idx, vals = map(np.asarray, eng.query(q))
 precision = len(set(gi.tolist()) & set(idx.tolist())) / 16
 
 # Rescore path: per-host CSR slice + cross-process candidate merge, on
-# the PRODUCTION octet layout (h16 + quantum-1) so the octet skeleton
-# exchange (stride + width slots) runs across real processes.
-cfg2 = TopKSpMVConfig(k=16, lane_k=8, num_partitions=1, max_cols=256,
-                      query_codec="h16", fused_layout="octet",
-                      width_quantum=1, fused_block_sublanes=64,
-                      block_sublanes=32, rescore_pool=64)
+# the production word format (h16 + quantum-1) so the skeleton exchange
+# (width, slice-count slots) and the value-scale exchange run across
+# real processes.
+cfg2 = TopKSpMVConfig(k=16, lane_k=8, max_cols=256, query_codec="h16",
+                      width_quantum=1, rescore_pool=64)
 eng2 = ShardedBucketedTopKSpMV(local, cfg2, mesh=mesh,
                                local_rows=(lo, coo.num_rows))
 i2, v2 = map(np.asarray, eng2.query(q))

@@ -2,15 +2,15 @@
 
 import numpy as np
 
-from spmv_topk_tpu.api import TopKSpMV
-from spmv_topk_tpu.bench import run_benchmark, CSV_HEADER
-from spmv_topk_tpu.config import TopKSpMVConfig
-from spmv_topk_tpu.formats import create_sparse_matrix
+from spmv_topk.api import TopKSpMV
+from spmv_topk.bench import run_benchmark, CSV_HEADER
+from spmv_topk.config import TopKSpMVConfig
+from spmv_topk.formats import create_sparse_matrix
 
 
 def test_harness_csv_and_stats():
     coo = create_sparse_matrix(800, 256, 10, "uniform", seed=40)
-    cfg = TopKSpMVConfig(k=10, num_partitions=1, max_cols=256, block_sublanes=32)
+    cfg = TopKSpMVConfig(k=10, max_cols=256)
     eng = TopKSpMV(coo, cfg)
     res = run_benchmark(eng, coo, num_tests=4, k=10, seed=41)
     lines = res.csv.strip().split("\n")
@@ -21,10 +21,10 @@ def test_harness_csv_and_stats():
     assert np.isfinite(res.nnz_per_sec)
 
 
-def test_cli_h16_and_autotune(tmp_path, capsys):
-    """CLI: the production h16 codec is selectable, and --autotune wires
-    tune.autotune through to the benchmark loop."""
-    from spmv_topk_tpu.cli import main
+def test_cli_h16_rescore(tmp_path, capsys):
+    """CLI: the production h16 codec with an exact rescore pool runs the
+    benchmark loop end to end and writes the CSV."""
+    from spmv_topk.cli import main
 
     csv = tmp_path / "out.csv"
     rc = main(["--synthetic", "1500", "256", "8", "gamma",
@@ -36,3 +36,16 @@ def test_cli_h16_and_autotune(tmp_path, capsys):
     # precision printed at the end must be ~exact (rescore pool)
     prec = float(out.split("precision")[1].split(";")[0])
     assert prec >= 0.95
+
+
+def test_device_step_seconds_single_and_group():
+    """The scan-slope timer used by bench.py and chip_smoke.py runs both
+    step shapes (one query, one group) and returns a finite time."""
+    from spmv_topk.bench import device_step_seconds
+
+    coo = create_sparse_matrix(1000, 256, 8, "uniform", seed=42)
+    eng = TopKSpMV(coo, TopKSpMVConfig(k=10, max_cols=256,
+                                       query_codec="h16", rescore_pool=40))
+    for group in (0, 4):
+        secs = device_step_seconds(eng, group)
+        assert np.isfinite(secs)

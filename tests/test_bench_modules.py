@@ -1,5 +1,5 @@
 """Smoke tests for the benchmark/figure modules (bench/sweep, bench/plots,
-bench/cpu_baseline): the TPU counterparts of the reference's sweep driver
+bench/cpu_baseline): the counterparts of the reference's sweep driver
 (test_spmv_topk.py) and plotting suite (src/resources/python/plotting/)."""
 
 import glob
@@ -8,15 +8,15 @@ import os
 import numpy as np
 import pytest
 
-from spmv_topk_tpu.formats import create_sparse_matrix
+from spmv_topk.formats import create_sparse_matrix
 
 
 def test_sweep_then_plots(tmp_path):
     import matplotlib
 
     matplotlib.use("Agg")
-    from spmv_topk_tpu.bench.sweep import run_sweep
-    from spmv_topk_tpu.bench import plots
+    from spmv_topk.bench.sweep import run_sweep
+    from spmv_topk.bench import plots
 
     out = str(tmp_path / "results")
     summary = run_sweep([1500], [256], ["uniform"], [8], k=20,
@@ -26,7 +26,7 @@ def test_sweep_then_plots(tmp_path):
     csvs = glob.glob(os.path.join(out, "*.csv"))
     assert len(csvs) == 1
     # reference CSV naming convention (plot_errors.py:52)
-    assert os.path.basename(csvs[0]).startswith("tpu-f32_1500_256_uniform_8")
+    assert os.path.basename(csvs[0]).startswith("jax-f32_1500_256_uniform_8")
 
     df = plots.load_results(out)
     assert len(df) == 3                 # one row per iteration
@@ -41,7 +41,7 @@ def test_sweep_then_plots(tmp_path):
 
 
 def test_cpu_baseline():
-    from spmv_topk_tpu.bench.cpu_baseline import topk_cpu
+    from spmv_topk.bench.cpu_baseline import topk_cpu
 
     coo = create_sparse_matrix(2000, 256, 8, "uniform", seed=40)
     rng = np.random.default_rng(41)
@@ -57,11 +57,9 @@ def test_plot_sparsity(tmp_path):
     """Degree/padding figure (plot_sparsity.py analog, VERDICT r1 #10)."""
     import os
 
-    from spmv_topk_tpu.bench import plots
-    from spmv_topk_tpu.formats import create_sparse_matrix
+    from spmv_topk.bench import plots
+    from spmv_topk.formats import create_sparse_matrix
 
-    # large enough that fused block padding (1024-sublane blocks) does not
-    # dominate the ratio the figure is meant to show
     coo = create_sparse_matrix(100_000, 512, 15, "gamma", seed=90)
     out = str(tmp_path)
     ratios = plots.plot_sparsity(coo, out, name="t")
@@ -77,7 +75,7 @@ def test_plot_convergence(tmp_path):
     """Accuracy-convergence figure (plot_convergence.py analog)."""
     import os
 
-    from spmv_topk_tpu.bench import plots
+    from spmv_topk.bench import plots
 
     path = plots.plot_convergence(str(tmp_path), n=20_000, num_tests=2)
     assert os.path.exists(path)
@@ -86,7 +84,7 @@ def test_plot_convergence(tmp_path):
 def test_accuracy_sweep_tiny(tmp_path):
     """Measured accuracy-vs-K sweep (VERDICT r3 #5): the module runs the
     real engine per K and beats the reference's bars on a tiny corpus."""
-    from spmv_topk_tpu.bench import accuracy_sweep
+    from spmv_topk.bench import accuracy_sweep
 
     res = accuracy_sweep.run(rows=4000, cols=256, deg=10, trials=2,
                              ks=(8, 16, 32), rescore_pool=64)

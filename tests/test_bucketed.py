@@ -1,15 +1,14 @@
-"""Bucketed uniform-W layout and query codec tests (interpret mode)."""
+"""Bucketed uniform-W layout tests (plain-JAX sweep on the CPU)."""
 
 import numpy as np
 import pytest
 
-from spmv_topk_tpu.api import TopKSpMV
-from spmv_topk_tpu.config import TopKSpMVConfig
-from spmv_topk_tpu.formats import CooMatrix, create_sparse_matrix, create_sample_vector
-from spmv_topk_tpu.formats.sell_buckets import pack_sell_buckets
-from spmv_topk_tpu.ops.fixedpoint import quantize_bf16
-from spmv_topk_tpu.ops.gold import topk_exact
-from spmv_topk_tpu.ops.quantized_query import pack_query_int8, dequantize_query_int8
+from spmv_topk.api import TopKSpMV
+from spmv_topk.config import TopKSpMVConfig
+from spmv_topk.formats import CooMatrix, create_sparse_matrix, create_sample_vector
+from spmv_topk.formats.sell_buckets import pack_sell_buckets
+from spmv_topk.ops.fixedpoint import quantize_bf16
+from spmv_topk.ops.gold import topk_exact
 
 
 def _precision(a, b):
@@ -19,20 +18,23 @@ def _precision(a, b):
 
 def test_bucket_structure():
     coo = create_sparse_matrix(4000, 512, 16, "gamma", seed=50)
-    m = pack_sell_buckets(coo, TopKSpMVConfig(max_cols=512, block_sublanes=128))
+    m = pack_sell_buckets(coo, TopKSpMVConfig(max_cols=512))
     # buckets cover all slices contiguously, widths strictly decreasing
     assert m.buckets[0].slice_base == 0
     total = 0
     widths = []
     for b in m.buckets:
         assert b.slice_base == total
-        assert b.width % 8 == 0 and b.block_sublanes % b.width == 0
+        assert b.width % 8 == 0 and b.words.shape == (b.num_slices, b.width,
+                                                      128)
         total += b.num_slices
         widths.append(b.width)
     assert total == m.num_slices
     assert widths == sorted(widths, reverse=True)
-    # sentinel row
-    assert np.all(m.row_ids[-1] == -1)
+    # every row appears once; only the last slice has padding lanes
+    ids = m.row_ids
+    assert sorted(ids[ids >= 0].tolist()) == list(range(coo.num_rows))
+    assert np.all(ids[:-1] >= 0)
 
 
 @pytest.mark.parametrize("dist", ["uniform", "gamma"])
@@ -40,8 +42,7 @@ def test_bucketed_engine_vs_exact(dist):
     coo = create_sparse_matrix(1300, 512, 14, dist, seed=51)
     qcoo = CooMatrix(coo.rows, coo.cols, quantize_bf16(coo.vals),
                      coo.num_rows, coo.num_cols)
-    cfg = TopKSpMVConfig(k=40, max_cols=512, layout="bucketed",
-                         block_sublanes=128)
+    cfg = TopKSpMVConfig(k=40, max_cols=512)
     eng = TopKSpMV(coo, cfg)
     for trial in range(1):
         q = create_sample_vector(512, seed=500 + trial)
@@ -52,16 +53,19 @@ def test_bucketed_engine_vs_exact(dist):
 
 
 def test_bucketed_negative_scores_block_padding():
-    """Block-padding slices must not displace real negative candidates."""
+    """Padding lanes (score 0) must not displace real negative
+    candidates."""
     rng = np.random.default_rng(52)
-    n = 300  # non-multiple of 128 -> padded lanes; few slices -> padded blocks
+    n = 300  # non-multiple of 128 -> padded lanes
     rows = np.repeat(np.arange(n, dtype=np.int32), 4)
     cols = rng.integers(0, 256, len(rows)).astype(np.int32)
     vals = (-np.abs(rng.standard_normal(len(rows)))).astype(np.float32)
     coo = CooMatrix(rows, cols, vals, n, 256).sort_row_major()
     q = np.abs(rng.standard_normal(256)).astype(np.float32)  # scores all < 0
-    cfg = TopKSpMVConfig(k=64, max_cols=256, layout="bucketed",
-                         block_sublanes=512)  # forces block padding
+    # lane_k=1: each lane keeps one of its 3 slices, so an unmasked
+    # padding lane (score 0) would take the slot of every real row in
+    # the 84 lanes whose last slice is padding
+    cfg = TopKSpMVConfig(k=64, lane_k=1, max_cols=256)
     eng = TopKSpMV(coo, cfg)
     ki, kv = map(np.asarray, eng.query(q))
     assert np.all(np.isfinite(kv)) and np.all(kv < 0)
@@ -69,30 +73,11 @@ def test_bucketed_negative_scores_block_padding():
     assert np.all(ki >= 0) and np.all(ki < n)
 
 
-def test_int8_codec_roundtrip():
-    v = np.random.default_rng(53).standard_normal(1024).astype(np.float32)
-    tab, s = pack_query_int8(v)
-    back = dequantize_query_int8(tab, s, 1024)
-    assert np.max(np.abs(back - v)) <= s / 2 + 1e-7
-
-
-def test_int8x4_query_codec_accuracy():
-    coo = create_sparse_matrix(1500, 1024, 20, "uniform", seed=54)
-    cfg = TopKSpMVConfig(k=50, layout="bucketed", query_codec="int8x4",
-                         block_sublanes=128)
-    eng = TopKSpMV(coo, cfg)
-    q = create_sample_vector(1024, seed=55)
-    ki, kv = map(np.asarray, eng.query(q))
-    gi, gv = topk_exact(coo, q, 50)
-    assert _precision(gi, ki) >= 0.9
-    np.testing.assert_allclose(np.sort(kv), np.sort(gv), rtol=0.05)
-
-
 def test_query_batch_grouped_kernel():
-    from spmv_topk_tpu.formats import create_query_batch
+    from spmv_topk.formats import create_query_batch
 
     coo = create_sparse_matrix(900, 512, 12, "gamma", seed=56)
-    cfg = TopKSpMVConfig(k=15, max_cols=512, block_sublanes=128)
+    cfg = TopKSpMVConfig(k=15, max_cols=512)
     eng = TopKSpMV(coo, cfg)
     Q = create_query_batch(5, 512, seed=57)  # forces a padded tail group
     bi, bv = map(np.asarray, eng.query_batch(Q, k=15, group_size=4))
@@ -104,13 +89,13 @@ def test_query_batch_grouped_kernel():
 
 
 def test_scores_plain_spmv():
-    from spmv_topk_tpu.ops.gold import spmv_exact
-    from spmv_topk_tpu.ops.fixedpoint import quantize_bf16
+    from spmv_topk.ops.gold import spmv_exact
+    from spmv_topk.ops.fixedpoint import quantize_bf16
 
     coo = create_sparse_matrix(900, 256, 10, "gamma", seed=58)
     qcoo = CooMatrix(coo.rows, coo.cols, quantize_bf16(coo.vals),
                      coo.num_rows, coo.num_cols)
-    cfg = TopKSpMVConfig(max_cols=256, block_sublanes=64)
+    cfg = TopKSpMVConfig(max_cols=256)
     eng = TopKSpMV(coo, cfg)
     q = create_sample_vector(256, seed=59)
     s = eng.scores(q)
@@ -129,7 +114,7 @@ def test_non_multiple_of_128_cols():
     np.testing.assert_allclose(np.sort(kv), np.sort(gv), atol=2e-3)
 
     fast = TopKSpMV(coo, TopKSpMVConfig(k=30, max_cols=128,
-                                        query_codec="i4s", width_quantum=4,
+                                        query_codec="h16", width_quantum=4,
                                         rescore_pool=120))
     fi, fv = map(np.asarray, fast.query(q))
     assert _precision(gi, fi) >= 0.96

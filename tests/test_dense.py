@@ -1,14 +1,14 @@
-"""Dense-MXU batch engine (ops/dense.py) vs the exact gold."""
+"""Dense batch engine (ops/dense.py) vs the exact gold."""
 
 import numpy as np
 import pytest
 
-import spmv_topk_tpu as st
-from spmv_topk_tpu.config import TopKSpMVConfig
-from spmv_topk_tpu.formats import (
+import spmv_topk as st
+from spmv_topk.config import TopKSpMVConfig
+from spmv_topk.formats import (
     create_sparse_matrix, create_query_batch, create_sample_vector)
-from spmv_topk_tpu.ops.dense import densify_bf16
-from spmv_topk_tpu.ops.gold import topk_exact
+from spmv_topk.ops.dense import densify_bf16
+from spmv_topk.ops.gold import topk_exact
 
 
 def _precision(a, b):
@@ -49,7 +49,7 @@ def test_dense_engine_single_query_parity():
 
 
 def test_densify_int8_roundtrip():
-    from spmv_topk_tpu.ops.dense import densify_int8
+    from spmv_topk.ops.dense import densify_int8
 
     coo = create_sparse_matrix(600, 256, 8, "uniform", seed=97)
     bits, scales = densify_int8(coo, row_block=200)
@@ -115,7 +115,7 @@ def test_dense_pad_rows_do_not_displace_negative_scores():
     cols = np.concatenate(
         [rng.choice(c, d, replace=False) for _ in range(n)]).astype(np.int32)
     vals = -np.abs(rng.standard_normal(n * d)).astype(np.float32)
-    from spmv_topk_tpu.formats import CooMatrix
+    from spmv_topk.formats import CooMatrix
     coo = CooMatrix(rows, cols, vals, n, c).sort_row_major()
     q = np.abs(rng.standard_normal(c)).astype(np.float32)  # scores all < 0
     eng = st.DenseTopKSpMV(coo, TopKSpMVConfig(k=30, max_cols=256),

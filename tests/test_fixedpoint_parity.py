@@ -14,13 +14,13 @@ import dataclasses
 import numpy as np
 import pytest
 
-from spmv_topk_tpu.api import TopKSpMV
-from spmv_topk_tpu.config import TopKSpMVConfig, ValueFormat
-from spmv_topk_tpu.formats import (create_sample_vector,
+from spmv_topk.api import TopKSpMV
+from spmv_topk.config import TopKSpMVConfig, ValueFormat
+from spmv_topk.formats import (create_sample_vector,
                                    create_sparse_matrix, pack_bscsr)
-from spmv_topk_tpu.formats.coo import CooMatrix
-from spmv_topk_tpu.ops import gold
-from spmv_topk_tpu.ops.fixedpoint import quantize_bf16, quantize_fixed
+from spmv_topk.formats.coo import CooMatrix
+from spmv_topk.ops import gold
+from spmv_topk.ops.fixedpoint import quantize_bf16, quantize_fixed
 
 
 def _quantized(coo: CooMatrix, width: int) -> CooMatrix:

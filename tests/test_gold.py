@@ -9,10 +9,10 @@ tested against the argsort ground truth.
 import numpy as np
 import pytest
 
-from spmv_topk_tpu.config import ValueFormat
-from spmv_topk_tpu.formats import create_sparse_matrix, create_sample_vector, pack_bscsr
-from spmv_topk_tpu.ops import gold
-from spmv_topk_tpu.ops.fixedpoint import quantize_fixed, quantize_bf16
+from spmv_topk.config import ValueFormat
+from spmv_topk.formats import create_sparse_matrix, create_sample_vector, pack_bscsr
+from spmv_topk.ops import gold
+from spmv_topk.ops.fixedpoint import quantize_fixed, quantize_bf16
 
 
 def _precision(a, b):
@@ -94,7 +94,7 @@ def test_bf16_quantizer_round_nearest_even():
 def test_pagerank_gold_converges():
     """Legacy PageRank parity (pagerank_golden, gold_algorithms.hpp:397)."""
     import numpy as np
-    from spmv_topk_tpu.formats.coo import CooMatrix
+    from spmv_topk.formats.coo import CooMatrix
 
     rng = np.random.default_rng(80)
     n = 50

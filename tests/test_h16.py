@@ -1,21 +1,21 @@
 """h16 codec: 2 nnz per 32-bit word (10-bit col + 6-bit value halves).
 
-The TPU analog of the reference's reduced-precision BSCSR packets — the
+The analog of the reference's reduced-precision BSCSR packets — the
 20-bit build raises nnz per 512-bit packet from 11 to 15
-(types.hpp:61-73); h16 halves HBM bytes per nnz outright. Values are
-6-bit signed with one global scale; the query is the int4x8 table, and
-the production pairing is h16 + rescore_pool (exact host re-ranking).
+(types.hpp:61-73); h16 halves the bytes streamed per nnz outright. Values
+are 6-bit signed with one global scale; the query stays f32, and the
+production pairing is h16 + rescore_pool (exact host re-ranking).
 """
 
 import numpy as np
 import pytest
 
-from spmv_topk_tpu.api import TopKSpMV
-from spmv_topk_tpu.config import TopKSpMVConfig
-from spmv_topk_tpu.formats import CooMatrix, create_sparse_matrix, create_sample_vector
-from spmv_topk_tpu.formats.sell_buckets import pack_sell_buckets
-from spmv_topk_tpu.formats.synthetic import create_query_batch
-from spmv_topk_tpu.ops.gold import topk_exact
+from spmv_topk.api import TopKSpMV
+from spmv_topk.config import TopKSpMVConfig
+from spmv_topk.formats import CooMatrix, create_sparse_matrix, create_sample_vector
+from spmv_topk.formats.sell_buckets import pack_sell_buckets
+from spmv_topk.formats.synthetic import create_query_batch
+from spmv_topk.ops.gold import topk_exact
 
 
 def _precision(a, b):
@@ -27,17 +27,15 @@ def test_h16_pack_roundtrip():
     """Decode the paired words back into a dense matrix and compare with
     direct 6-bit quantization."""
     coo = create_sparse_matrix(700, 512, 9, "gamma", seed=110)  # odd degrees
-    cfg = TopKSpMVConfig(k=10, max_cols=512, query_codec="h16",
-                         block_sublanes=64)
+    cfg = TopKSpMVConfig(k=10, max_cols=512, query_codec="h16")
     m = pack_sell_buckets(coo, cfg)
     vs = m.value_scale
     dense = np.zeros((coo.num_rows, coo.num_cols), np.float64)
     for b in m.buckets:
-        W = b.width
         for s in range(b.num_slices):
             t = b.slice_base + s
             rows = m.row_ids[t]
-            blk = b.words[s * W:(s + 1) * W].view(np.uint32)
+            blk = b.words[s].view(np.uint32)
             for half_shift in (0, 16):
                 h = (blk >> half_shift) & 0xFFFF
                 col = h & 0x3FF
@@ -116,14 +114,13 @@ def test_h16_save_load_value_scale(tmp_path):
 def test_h16_sharded():
     import jax
 
-    from spmv_topk_tpu.parallel import make_mesh
-    from spmv_topk_tpu.parallel.sharded_buckets import ShardedBucketedTopKSpMV
+    from spmv_topk.parallel import make_mesh
+    from spmv_topk.parallel.sharded_buckets import ShardedBucketedTopKSpMV
 
     mesh = make_mesh(jax.devices()[:4])
     coo = create_sparse_matrix(2000, 512, 10, "gamma", seed=117)
-    cfg = TopKSpMVConfig(k=25, max_cols=512, block_sublanes=64,
-                         fused_block_sublanes=64,
-                         query_codec="h16", rescore_pool=125)
+    cfg = TopKSpMVConfig(k=25, max_cols=512, query_codec="h16",
+                         rescore_pool=125)
     eng = ShardedBucketedTopKSpMV(coo, cfg, mesh=mesh)
     q = create_sample_vector(512, seed=118)
     ki, kv = map(np.asarray, eng.query(q))

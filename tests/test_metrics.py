@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from spmv_topk_tpu.eval import metrics
-from spmv_topk_tpu.eval.accuracy_model import (
+from spmv_topk.eval import metrics
+from spmv_topk.eval.accuracy_model import (
     closed_form_precision, monte_carlo_precision,
 )
 
@@ -59,7 +59,7 @@ def test_accuracy_model_closed_form_vs_monte_carlo():
 
 
 def test_accuracy_model_lane_partitioning_is_safe():
-    """The TPU layout's effective partition count (128 lanes) keeps
+    """The sweep's effective partition count (128 lanes) keeps
     precision ~1 at K=100 with lane_k=8 — the design claim behind
     keeping only 8 candidates per lane."""
     assert closed_form_precision(100000, 128, 100, 8) > 0.999
@@ -70,7 +70,7 @@ def test_rescore_pool_convergence_model():
     precision converges in the rescore-pool size, noise only hurts small
     pools, and with zero noise + full pool it matches the pure
     partition-survival model."""
-    from spmv_topk_tpu.eval.accuracy_model import (
+    from spmv_topk.eval.accuracy_model import (
         monte_carlo_rescore_precision)
 
     n, b, k, pk = 20000, 16, 50, 8

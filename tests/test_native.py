@@ -3,9 +3,10 @@
 import numpy as np
 import pytest
 
-from spmv_topk_tpu.config import TopKSpMVConfig
-from spmv_topk_tpu.formats import create_sparse_matrix, write_mtx, pack_sell
-from spmv_topk_tpu.utils import native
+from spmv_topk.config import TopKSpMVConfig
+from spmv_topk.formats import create_sparse_matrix, write_mtx
+from spmv_topk.formats.sell_buckets import pack_sell_buckets
+from spmv_topk.utils import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native runtime not built"
@@ -25,14 +26,16 @@ def test_native_mtx_parse_matches_python(tmp_path):
 
 def test_native_pack_equals_numpy_pack(monkeypatch):
     coo = create_sparse_matrix(3000, 512, 15, "gamma", seed=31)
-    cfg = TopKSpMVConfig(max_cols=512, num_partitions=2, block_sublanes=64)
-    m_native = pack_sell(coo, cfg)
+    cfg = TopKSpMVConfig(max_cols=512, width_quantum=2)
+    m_native = pack_sell_buckets(coo, cfg)
     # force the NumPy path
     monkeypatch.setattr(native, "sell_plan", lambda *a, **k: None)
     monkeypatch.setattr(native, "sell_scatter", lambda *a, **k: None)
-    m_numpy = pack_sell(coo, cfg)
-    np.testing.assert_array_equal(m_native.words, m_numpy.words)
-    np.testing.assert_array_equal(m_native.meta, m_numpy.meta)
+    m_numpy = pack_sell_buckets(coo, cfg)
+    assert len(m_native.buckets) == len(m_numpy.buckets)
+    for bn, bp in zip(m_native.buckets, m_numpy.buckets):
+        assert (bn.width, bn.slice_base) == (bp.width, bp.slice_base)
+        np.testing.assert_array_equal(bn.words, bp.words)
     np.testing.assert_array_equal(m_native.row_ids, m_numpy.row_ids)
 
 
@@ -46,8 +49,8 @@ def test_native_sort_perm():
 
 
 def test_csr_rescore_matches_numpy_fallback():
-    from spmv_topk_tpu.api import exact_rescore
-    from spmv_topk_tpu.utils import native
+    from spmv_topk.api import exact_rescore
+    from spmv_topk.utils import native
 
     coo = create_sparse_matrix(5000, 512, 12, "gamma", seed=33)
     csr = coo.to_scipy()
@@ -70,11 +73,10 @@ def test_csr_rescore_matches_numpy_fallback():
 
 def test_native_h16_scatter_matches_numpy(monkeypatch):
     """Native threaded pair-scatter vs the NumPy oracle, bucketed pack."""
-    from spmv_topk_tpu.formats.sell_buckets import pack_sell_buckets
+    from spmv_topk.formats.sell_buckets import pack_sell_buckets
 
     coo = create_sparse_matrix(4000, 1024, 21, "gamma", seed=35)  # odd degs
-    cfg = TopKSpMVConfig(query_codec="h16", rescore_pool=200,
-                         block_sublanes=64)
+    cfg = TopKSpMVConfig(query_codec="h16", rescore_pool=200)
     m_native = pack_sell_buckets(coo, cfg)
     monkeypatch.setattr(native, "h16_scatter", lambda *a, **k: None)
     m_numpy = pack_sell_buckets(coo, cfg)
@@ -88,7 +90,7 @@ def test_native_h16_scatter_matches_numpy(monkeypatch):
 
 def test_native_cpu_topk_spmv_matches_scipy():
     """Native threaded CPU Top-K SpMV == scipy matvec + argsort oracle."""
-    from spmv_topk_tpu.utils import native
+    from spmv_topk.utils import native
 
     if not native.available():
         pytest.skip("native runtime not built")

@@ -1,21 +1,20 @@
-"""Exact-rescore serving mode: quantized sweep + host CSR re-ranking.
+"""Exact-rescore serving mode: reduced-precision sweep + host CSR re-ranking.
 
-The device sweep with a quantized query codec (i4s runs at the HBM
-streaming ceiling) proposes a widened candidate pool; the exact f32
-re-ranking on the host CSR restores the true top-k — the TPU engine's
-analog of the reference's host merge being the accuracy backstop over
-per-partition approximation (host_spmv_bscsr.cpp:399-448,
-topk_errors.py:29-42).
+The device sweep over h16 words (6-bit matrix values, half the bytes
+per nnz) proposes a widened candidate pool; the exact f32 re-ranking on
+the host CSR restores the true top-k — the engine's analog of the
+reference's host merge being the accuracy backstop over per-partition
+approximation (host_spmv_bscsr.cpp:399-448, topk_errors.py:29-42).
 """
 
 import numpy as np
 import pytest
 
-from spmv_topk_tpu.api import TopKSpMV
-from spmv_topk_tpu.config import TopKSpMVConfig
-from spmv_topk_tpu.formats import create_sparse_matrix, create_sample_vector
-from spmv_topk_tpu.formats.synthetic import create_query_batch
-from spmv_topk_tpu.ops.gold import topk_exact
+from spmv_topk.api import TopKSpMV
+from spmv_topk.config import TopKSpMVConfig
+from spmv_topk.formats import create_sparse_matrix, create_sample_vector
+from spmv_topk.formats.synthetic import create_query_batch
+from spmv_topk.ops.gold import topk_exact
 
 
 def _precision(a, b):
@@ -23,19 +22,19 @@ def _precision(a, b):
     return len(set(a) & set(b)) / len(a)
 
 
-def test_rescore_restores_exact_ranking_i4s():
+def test_rescore_restores_exact_ranking_h16():
     coo = create_sparse_matrix(3000, 1024, 16, "gamma", seed=90)
     q = create_sample_vector(1024, seed=91)
     gi, gv = topk_exact(coo, q, 50)
 
-    eng = TopKSpMV(coo, TopKSpMVConfig(k=50, query_codec="i4s",
+    eng = TopKSpMV(coo, TopKSpMVConfig(k=50, query_codec="h16",
                                        rescore_pool=250))
     ri, rv = eng.query(q)
     assert _precision(gi, ri) >= 0.98
     # rescored values are exact f32 dot products
     np.testing.assert_allclose(np.sort(rv), np.sort(gv), rtol=1e-5)
 
-    # raw i4s (pool disabled per call) ranks strictly worse or equal
+    # raw h16 (pool disabled per call) ranks strictly worse or equal
     raw_i, _ = eng.query(q, rescore_pool=0)
     assert _precision(gi, ri) >= _precision(gi, np.asarray(raw_i))
 
@@ -43,7 +42,7 @@ def test_rescore_restores_exact_ranking_i4s():
 def test_rescore_batch():
     coo = create_sparse_matrix(2000, 512, 12, "uniform", seed=92)
     eng = TopKSpMV(coo, TopKSpMVConfig(k=25, max_cols=512,
-                                       query_codec="i8s", rescore_pool=100))
+                                       query_codec="h16", rescore_pool=100))
     Q = create_query_batch(3, 512, seed=93)
     bi, bv = map(np.asarray, eng.query_batch(Q, group_size=2))
     assert bi.shape == (3, 25)
@@ -83,7 +82,7 @@ def test_loaded_engine_disables_rescore(tmp_path):
 
 
 def test_dense_engine_rescore():
-    from spmv_topk_tpu.ops.dense import DenseTopKSpMV
+    from spmv_topk.ops.dense import DenseTopKSpMV
 
     coo = create_sparse_matrix(2000, 256, 10, "gamma", seed=98)
     eng = DenseTopKSpMV(coo, TopKSpMVConfig(k=25, max_cols=256,
@@ -99,15 +98,15 @@ def test_dense_engine_rescore():
 def test_sharded_oversized_pool_clamps_and_oversized_k_raises():
     import jax
 
-    from spmv_topk_tpu.parallel import make_mesh
-    from spmv_topk_tpu.parallel.sharded_buckets import ShardedBucketedTopKSpMV
+    from spmv_topk.parallel import make_mesh
+    from spmv_topk.parallel.sharded_buckets import ShardedBucketedTopKSpMV
 
     mesh = make_mesh(jax.devices()[:2])
     coo = create_sparse_matrix(1200, 256, 8, "uniform", seed=100)
     # pool larger than the per-device candidate pool (lane_k*128=1024):
     # the device merge clamps, the rescore pads to k
-    cfg = TopKSpMVConfig(k=20, max_cols=256, block_sublanes=32,
-                         query_codec="i8s", rescore_pool=2000)
+    cfg = TopKSpMVConfig(k=20, max_cols=256, query_codec="h16",
+                         rescore_pool=2000)
     eng = ShardedBucketedTopKSpMV(coo, cfg, mesh=mesh)
     q = create_sample_vector(256, seed=101)
     ki, kv = map(np.asarray, eng.query(q))
@@ -122,8 +121,8 @@ def test_sharded_oversized_pool_clamps_and_oversized_k_raises():
 
 def test_exact_rescore_handles_empty_rows():
     """cumsum-difference segment sums: rows with zero nnz score 0."""
-    from spmv_topk_tpu.formats import CooMatrix
-    from spmv_topk_tpu.api import exact_rescore
+    from spmv_topk.formats import CooMatrix
+    from spmv_topk.api import exact_rescore
 
     rows = np.array([0, 0, 2], np.int32)    # row 1 and 3 empty
     cols = np.array([0, 3, 1], np.int32)

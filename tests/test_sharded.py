@@ -1,22 +1,21 @@
 """Public sharding surface: mesh helpers + the engine alias.
 
-The round-1 streamed sharded engine was removed in round 5 (one
-production format, like the reference); the bucketed sharded engine's
-behavioral coverage lives in test_sharded_buckets.py / test_octet.py.
+The bucketed sharded engine's behavioral coverage lives in
+test_sharded_buckets.py and test_sweep.py.
 """
 
 import jax
 import numpy as np
 
-from spmv_topk_tpu.parallel import AXIS, make_mesh
+from spmv_topk.parallel import AXIS, make_mesh
 
 
 def test_public_alias_is_bucketed_engine():
     # VERDICT r2 weak #4: the public name must be the fast fused engine.
-    from spmv_topk_tpu.parallel import ShardedTopKSpMV, ShardedBucketedTopKSpMV
+    from spmv_topk.parallel import ShardedTopKSpMV, ShardedBucketedTopKSpMV
     assert ShardedTopKSpMV is ShardedBucketedTopKSpMV
     # the streamed engine is gone (VERDICT r4 #6: one production format)
-    import spmv_topk_tpu.parallel as par
+    import spmv_topk.parallel as par
     assert not hasattr(par, "ShardedStreamedTopKSpMV")
 
 
@@ -28,10 +27,17 @@ def test_make_mesh_shapes():
     assert full.devices.size == len(jax.devices())
 
 
-def test_streamed_layout_rejected_at_config():
+def test_sharded_engine_requires_sigma_sort():
+    """The cross-shard skeleton keys buckets by width; unsorted rows
+    produce several buckets of one width, so they are refused."""
     import pytest
 
-    from spmv_topk_tpu.config import TopKSpMVConfig
+    from spmv_topk.config import TopKSpMVConfig
+    from spmv_topk.formats import create_sparse_matrix
+    from spmv_topk.parallel import ShardedBucketedTopKSpMV
 
-    with pytest.raises(ValueError, match="bucketed"):
-        TopKSpMVConfig(layout="streamed")
+    coo = create_sparse_matrix(600, 128, 4, "uniform", seed=1)
+    with pytest.raises(ValueError, match="sigma_sort"):
+        ShardedBucketedTopKSpMV(coo, TopKSpMVConfig(max_cols=128,
+                                                    sigma_sort=False),
+                                mesh=make_mesh(jax.devices()[:2]))

@@ -1,12 +1,12 @@
-"""Row-sharded dense-MXU engine on the virtual CPU mesh."""
+"""Row-sharded dense engine on the virtual CPU mesh."""
 
 import jax
 import numpy as np
 
-from spmv_topk_tpu.config import TopKSpMVConfig
-from spmv_topk_tpu.formats import create_sparse_matrix, create_query_batch
-from spmv_topk_tpu.ops.gold import topk_exact
-from spmv_topk_tpu.parallel import ShardedDenseTopKSpMV, make_mesh
+from spmv_topk.config import TopKSpMVConfig
+from spmv_topk.formats import create_sparse_matrix, create_query_batch
+from spmv_topk.ops.gold import topk_exact
+from spmv_topk.parallel import ShardedDenseTopKSpMV, make_mesh
 
 
 def _precision(a, b):
@@ -41,7 +41,7 @@ def test_sharded_dense_single_query():
 
 
 def test_sharded_dense_int8_matches_exact():
-    """int8 per-row-scale shards: same sentinel masking + ICI merge."""
+    """int8 per-row-scale shards: same sentinel masking + all_gather merge."""
     mesh = make_mesh(jax.devices()[:4])
     coo = create_sparse_matrix(3001, 256, 10, "gamma", seed=100)
     eng = ShardedDenseTopKSpMV(coo, TopKSpMVConfig(k=30, max_cols=256),

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from spmv_topk_tpu.api import TopKSpMV
-from spmv_topk_tpu.config import TopKSpMVConfig, FIXED8
-from spmv_topk_tpu.formats import CooMatrix, create_sparse_matrix, create_sample_vector
-from spmv_topk_tpu.ops.fixedpoint import quantize_fixed
-from spmv_topk_tpu.ops.gold import topk_exact
-from spmv_topk_tpu.topk import merge_candidates_host
+from spmv_topk.api import TopKSpMV
+from spmv_topk.config import TopKSpMVConfig, FIXED8
+from spmv_topk.formats import CooMatrix, create_sparse_matrix, create_sample_vector
+from spmv_topk.ops.fixedpoint import quantize_fixed
+from spmv_topk.ops.gold import topk_exact
+from spmv_topk.topk import merge_candidates_host
 
 
 def test_merge_candidates_host_dedupe_and_order():
@@ -25,8 +25,7 @@ def test_fixed8_is_bit_exact_end_to_end():
     coo = create_sparse_matrix(1000, 256, 10, "uniform", seed=90)
     qvals = quantize_fixed(coo.vals, 8, 1)
     qcoo = CooMatrix(coo.rows, coo.cols, qvals, coo.num_rows, coo.num_cols)
-    cfg = TopKSpMVConfig(k=20, max_cols=256, value_format=FIXED8,
-                         block_sublanes=64)
+    cfg = TopKSpMVConfig(k=20, max_cols=256, value_format=FIXED8)
     eng = TopKSpMV(coo, cfg)
     q = create_sample_vector(256, seed=91)
     ki, kv = map(np.asarray, eng.query(q))
